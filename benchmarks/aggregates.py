@@ -23,6 +23,8 @@ def main():
     parser.add_argument("--device", action="store_true")
     args = parser.parse_args()
 
+    from benchmarks.device import announce
+    device = announce()
     import vaex_tpu as vt
     from vaex_tpu import cache
 
@@ -56,6 +58,7 @@ def main():
             dt = time.perf_counter() - t0
             results[name] = {"seconds": dt, "rows_per_s": n / dt}
             print(f"{name:24s}: {dt*1e3:8.1f} ms  {n/dt/1e6:9.1f} M rows/s", flush=True)
+    results["device"] = device
     print(json.dumps(results))
 
 

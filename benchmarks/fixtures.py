@@ -25,18 +25,24 @@ def numerical(n: int, seed=42):
     )
 
 
-def h2o(n: int, k: int = 100, seed=42):
-    """H2O db-benchmark layout (reference benchmarks/groupbyh2o.py:15-93)."""
-    import vaex_tpu as vt
+def h2o_arrays(n: int, k: int = 100, seed=42):
+    """H2O db-benchmark groupby table as numpy columns (reference
+    benchmarks/groupbyh2o.py:15-93): id1..id6 int64 keys, v1..v3 values."""
     rng = np.random.default_rng(seed)
-    return vt.from_arrays(
-        id1=rng.integers(1, k + 1, n).astype(np.int64),       # 'id%03d' strings in H2O
-        id2=rng.integers(1, k + 1, n).astype(np.int64),
-        id3=rng.integers(1, n // k + 1, n).astype(np.int64),  # high cardinality
-        id4=rng.integers(1, k + 1, n).astype(np.int64),
-        id5=rng.integers(1, k + 1, n).astype(np.int64),
-        id6=rng.integers(1, n // k + 1, n).astype(np.int64),
-        v1=rng.integers(1, 6, n).astype(np.int64),
-        v2=rng.integers(1, 16, n).astype(np.int64),
+    return dict(
+        id1=rng.integers(1, k + 1, n, dtype=np.int64),       # 'id%03d' strings in H2O
+        id2=rng.integers(1, k + 1, n, dtype=np.int64),
+        id3=rng.integers(1, n // k + 1, n, dtype=np.int64),  # high cardinality
+        id4=rng.integers(1, k + 1, n, dtype=np.int64),
+        id5=rng.integers(1, k + 1, n, dtype=np.int64),
+        id6=rng.integers(1, n // k + 1, n, dtype=np.int64),
+        v1=rng.integers(1, 6, n, dtype=np.int64),
+        v2=rng.integers(1, 16, n, dtype=np.int64),
         v3=rng.random(n) * 100,
     )
+
+
+def h2o(n: int, k: int = 100, seed=42):
+    """H2O db-benchmark layout as a DataFrame."""
+    import vaex_tpu as vt
+    return vt.from_arrays(**h2o_arrays(n, k, seed))

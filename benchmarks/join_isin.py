@@ -22,6 +22,8 @@ def main():
     parser.add_argument("--dim", type=float, default=1e6)
     args = parser.parse_args()
 
+    from benchmarks.device import announce
+    device = announce()
     import vaex_tpu as vt
     from vaex_tpu import cache
 
@@ -55,7 +57,7 @@ def main():
         j = timed("join_plan", lambda: fact.join(dim, on="key", allow_duplication=False))
         timed("join_materialize_sum", lambda: fact.join(dim, on="key").sum("label"))
 
-        fact_dev = fact.to_device()  # HBM-resident for the selection passes
+        fact_dev = fact.to_device()  # device-resident for the selection passes
         fact_dev._tile_rows = 1 << 22
         values = rng.choice(m, 1000, replace=False).astype(np.int64)
         timed("isin_1000", lambda: np.asarray(
@@ -63,6 +65,7 @@ def main():
         few = values[:10]
         timed("isin_10", lambda: np.asarray(
             fact_dev.count(selection=str(fact_dev["key"].isin(few)))))
+    results["device"] = device
     print(json.dumps(results))
 
 

@@ -2,7 +2,7 @@
 plus the str_* kernel surface (reference: benchmarks/strings.py,
 benchmarks/isin.py — 1e8-row numeric strings, fixtures.py:8-23).
 
-Strings ride the declared TPU design (SURVEY §7.1): dictionary-encode at
+Strings ride the declared device design (SURVEY §7.1): dictionary-encode at
 ingest (``to_device``), device ops on int32 codes, str_* kernels on the host
 via pyarrow.  Run: python benchmarks/strings.py [--n 1e7] [--device] [--check]
 """
@@ -39,6 +39,8 @@ def main():
     parser.add_argument("--check", action="store_true")
     args = parser.parse_args()
 
+    from benchmarks.device import announce
+    device = announce()
     import vaex_tpu as vt
     from vaex_tpu import cache
 
@@ -84,6 +86,7 @@ def main():
         oracle_isin = int(pdf["s"].isin(isin_values).sum())
         assert got_isin == oracle_isin, (got_isin, oracle_isin)
         print("oracle checks pass", flush=True)
+    results["device"] = device
     print(json.dumps(results))
 
 

@@ -1,6 +1,6 @@
 // hostkern: native host-side kernels for vaex_tpu.
 //
-// TPU-native re-design of the host-resident parts of the reference's C++
+// Re-design of the host-resident parts of the reference's C++
 // layer (vaex-core/src).  The device compute path is XLA/Pallas; what remains
 // on the host — row-mask bookkeeping (reference superutils.cpp Mask),
 // hash-partitioning for the multi-host shuffle (reference hash.hpp _hash64 +

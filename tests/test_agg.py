@@ -295,7 +295,7 @@ def test_exact_percentile_inf_groups():
 
 
 def test_exact_percentile_streams_across_tiles():
-    """VERDICT r3 #6: exact percentile no longer needs the pass in one tile —
+    """exact percentile no longer needs the pass in one tile —
     tiles collect (cell, value) pairs and finalize runs one sort.  Forcing a
     tiny tile makes the pass present many tiles; the median must still match
     pandas to 1e-9 (the approx op's tolerance is ~0.35 here)."""
@@ -332,7 +332,7 @@ def test_exact_percentile_streams_multi_pct():
 
 
 def test_wire_narrowing_f32_exact_values():
-    """VERDICT r3 #5: f64 value columns whose raw values are PROVEN exactly
+    """f64 value columns whose raw values are PROVEN exactly
     f32-representable ship as f32 after the first (checking) pass — lossless
     — while non-exact columns never narrow."""
     rng = np.random.default_rng(12)
@@ -367,7 +367,7 @@ def test_wire_narrowing_f32_exact_values():
 def test_extreme_fast_dtype_coverage():
     """extreme_packed (f32/ints<=32bit, exact order-map bijection) and
     extreme_lex2 (f64/i64 wide values) against numpy oracles at G>512
-    (the high-G sort route, round 5)."""
+    (the high-G sort route)."""
     import jax
     import jax.numpy as jnp
     from vaex_tpu.ops import gridagg

@@ -46,7 +46,7 @@ def test_grid_model_counts(df):
 
 
 def test_selection_change_one_pass_two_views(df):
-    """The linked-views contract (VERDICT r2 #7): one selection change
+    """The linked-views contract: one selection change
     re-aggregates BOTH views in exactly ONE fused executor pass."""
     ax_x = Axis(df, "x", shape=16, min=0, max=10)
     ax_y = Axis(df, "y", shape=8, min=-2, max=2)
@@ -94,7 +94,7 @@ def test_axis_categorical_no_pass(df):
 
 
 def test_linked_views_brush_one_pass(df):
-    """VERDICT r3 #7: brushing the HISTOGRAM VIEW updates the heatmap view
+    """brushing the HISTOGRAM VIEW updates the heatmap view
     through exactly one fused pass — the full view->select->dispatch->
     re-grid->redraw loop, headless."""
     from vaex_tpu.jupyter_view import HeadlessBackend, HistogramView, HeatmapView

@@ -206,7 +206,7 @@ def test_boosting_requires_library():
 
 
 def test_kmeans_clusters_and_transform():
-    """KMeans (reference cluster.py:66): MXU-batched Lloyd's on three
+    """KMeans (reference cluster.py:66): matmul-batched Lloyd's on three
     well-separated blobs recovers the centers; transform adds the
     prediction as a virtual column; state round-trips."""
     from vaex_tpu.ml import KMeans

@@ -1,4 +1,4 @@
-"""SPMD execution over the 8-virtual-device CPU mesh — the stand-in for a TPU
+"""SPMD execution over the 8-virtual-device CPU mesh — the stand-in for a
 pod slice (SURVEY §4: single-process multi-device simulation replaces the
 reference's in-process websocket server trick)."""
 
@@ -214,6 +214,36 @@ def test_spmd_whole_pass_device_resident():
     assert float(np.asarray(df.first("x", "-x"))) == n - 1
 
 
+@pytest.mark.parametrize("n", [1000, 1003])
+def test_to_device_under_mesh_shards_rows(n):
+    """to_device() under a distributed executor splits the rows over the
+    mesh (when they divide evenly) and the whole pass reads them in place:
+    shard-local tile padding must not count as rows."""
+    import jax
+    if len(jax.devices()) < 2:
+        pytest.skip("needs multiple devices")
+    from vaex_tpu.parallel import distributed_executor
+    x = np.arange(n, dtype="f8")
+    g = (np.arange(n) % 7).astype("i8")
+    df = vt.from_arrays(x=x, g=g)
+    df.executor = distributed_executor()
+    df = df.to_device()
+    D = df.executor.mesh.size
+    col = df.dataset.device_columns(["x"])["x"]
+    shard_rows = sorted({s.data.shape[0] for s in col.addressable_shards})
+    assert shard_rows == ([n // D] if n % D == 0 else [n])
+    df._tile_rows = 256
+    assert df.count() == n
+    assert float(np.asarray(df.sum("x"))) == x.sum()
+    assert float(np.asarray(df.max("x"))) == n - 1
+    assert float(np.asarray(df.first("x", "-x"))) == n - 1
+    assert df.executor.whole_passes >= 1
+    out = df.groupby("g", agg={"s": vt.agg.sum("x"), "c": "count"}, sort=True)
+    npt.assert_allclose(np.asarray(out["s"].tolist()),
+                        np.bincount(g, weights=x, minlength=7))
+    npt.assert_array_equal(np.asarray(out["c"].tolist()), np.bincount(g, minlength=7))
+
+
 def test_shuffle_route_descending_sort(monkeypatch):
     """ADVICE r2 (high): keys must pair with the right groups' aggregates on
     the shuffle route when sort order permutes bin_values (descending)."""
@@ -255,7 +285,7 @@ def test_groupby_agg_delay_returns_promise(monkeypatch):
 
 
 def test_shuffle_full_agg_surface(monkeypatch):
-    """VERDICT r2 #4: min/max/std/var/nunique through the shuffle at G=1e5
+    """min/max/std/var/nunique through the shuffle at G=1e5
     match the single-device path bit-for-bit (ints) / 1e-9 (floats)."""
     import jax
     if len(jax.devices()) < 2:
@@ -446,7 +476,7 @@ def test_shuffle_skew_falls_back_to_replicated(monkeypatch):
 
 
 def test_fused_mesh_groupby_matches_single_device():
-    """VERDICT r3 #3: sparse-key groupby on the mesh rides the fused
+    """sparse-key groupby on the mesh rides the fused
     one-sort plan — shard-local sort, ONE all-to-all, zero set-build
     passes — and matches the single-device fused path (ints bit-for-bit,
     floats to 1e-9)."""
@@ -532,7 +562,7 @@ def test_fused_mesh_groupby_multikey():
 
 
 def test_fused_mesh_exact_median():
-    """VERDICT r3 #6: exact per-group median on the 8-device mesh via the
+    """exact per-group median on the 8-device mesh via the
     fused one-sort exchange (value column as second sort key), matching
     pandas to 1e-12 — including NaN skipping and all-NaN groups.  A small
     cartesian multi-key with a percentile FORCES the fused exchange (the

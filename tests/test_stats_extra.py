@@ -210,7 +210,7 @@ def test_agg_median_multitile():
 
 
 def test_median_exact_groupby():
-    """VERDICT r2 #5: per-group median is EXACT on the sort path (the
+    """per-group median is EXACT on the sort path (the
     reference is approx-only, dataframe.py:1419-1524)."""
     rng = np.random.default_rng(13)
     n = 50_000

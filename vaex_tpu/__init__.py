@@ -1,9 +1,9 @@
-"""vaex_tpu — a TPU-native vectorized DataFrame / query-execution engine.
+"""vaex_tpu — a vectorized DataFrame / query-execution engine on JAX.
 
 Brand-new implementation of the capabilities of vaex (lazy, out-of-core,
-expression-driven DataFrames; see /root/reference) designed for TPUs:
-expressions compile into one fused XLA program per pass, aggregation grids
-live in HBM, hashmaps are replaced by sorted-set binary-search kernels, and
+expression-driven DataFrames) for accelerators: expressions compile into
+one fused XLA program per pass, aggregation grids live in device memory,
+hashmaps are replaced by sorted-set binary-search kernels, and
 multi-device execution is SPMD over a ``jax.sharding.Mesh``.
 
 Top-level API mirrors the reference's ``vaex/__init__.py``:
@@ -23,17 +23,13 @@ from . import settings as _settings
 if _settings.X64:
     _jax.config.update("jax_enable_x64", True)
 
-if _settings.COMPILE_CACHE:
-    # persistent XLA compile cache: pass programs (sorts, channel kernels)
-    # compile once per (shape, task-set) EVER, not once per process — on a
-    # tunneled/remote-compile TPU this turns 30-300s warmups into <1s loads
-    try:
-        _os.makedirs(_settings.COMPILE_CACHE, exist_ok=True)
-        _jax.config.update("jax_compilation_cache_dir", _settings.COMPILE_CACHE)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        _jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    except Exception:  # cache is an optimization, never a hard dependency
-        pass
+# persistent XLA compile cache: pass programs compile once per (shape,
+# task-set), not once per process.  JAX reads JAX_COMPILATION_CACHE_DIR
+# itself; only without it does the package name a directory
+if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+    _jax.config.update("jax_compilation_cache_dir", _settings.DEFAULT_COMPILE_CACHE)
+_jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+_jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
 
 import numpy as _np
 
@@ -78,7 +74,7 @@ def from_arrays(**arrays) -> DataFrame:
             import pyarrow as pa
             try:
                 # native inference keeps bytes as binary, strings as utf8 —
-                # no lossy str() round-trip (VERDICT r3 #8 object columns)
+                # no lossy str() round-trip
                 ar = pa.array(ar.tolist() if ar.dtype == object else ar)
             except (pa.lib.ArrowInvalid, pa.lib.ArrowTypeError,
                     pa.lib.ArrowNotImplementedError, ValueError, TypeError):

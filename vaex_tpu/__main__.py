@@ -12,7 +12,7 @@ import sys
 
 
 def main(argv=None):
-    parser = argparse.ArgumentParser("vaex_tpu", description="TPU-native DataFrame engine CLI")
+    parser = argparse.ArgumentParser("vaex_tpu", description="DataFrame engine CLI")
     sub = parser.add_subparsers(dest="command")
 
     p_convert = sub.add_parser("convert", help="convert between file formats")

@@ -123,7 +123,7 @@ class Dataset(collections.abc.Mapping):
 
         The executor uses this to fuse an entire pass into one compiled
         program (a ``fori_loop`` over tiles) instead of dispatching one step
-        per tile — the TPU analogue of the reference keeping hot data in the
+        per tile — the device analogue of the reference keeping hot data in the
         page cache (README.md:9-11).  Only nodes that can hand back plain
         ``jax.Array`` columns participate; anything needing host work
         (files, takes, filters, concat rechunking) returns None and rides the

@@ -3,7 +3,7 @@
 Re-design of the reference's ``vaex/datatype.py`` (438 LoC): a thin value type
 that answers "what is this column's logical type" uniformly whether the data
 currently lives as a numpy array on the host, an arrow array in a file, or a
-jnp array in HBM.  TPU-specific addition: ``.device`` — the dtype actually used
+jnp array in device memory.  Addition: ``.device`` — the dtype actually used
 on device (strings become int32 dictionary codes, datetimes become int64).
 """
 
@@ -141,7 +141,7 @@ class DataType:
 
     @property
     def device(self) -> np.dtype:
-        """The dtype this column uses on the TPU.
+        """The dtype this column uses on the device.
 
         Strings ride as int32 dictionary codes; datetimes/timedeltas as their
         int64 epoch representation; everything primitive is itself.

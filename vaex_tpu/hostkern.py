@@ -5,7 +5,8 @@ layer (SURVEY §2.1): row-mask bookkeeping (superutils.cpp Mask), murmur-style
 hash partitioning for the distributed shuffle (hash.hpp), NaN-aware min/max
 scans (vaexfast.cpp find_nan_min_max) and parallel gather.  Every entry point
 has a numpy fallback so the engine works without a compiled library; the
-build is one ``make -C csrc`` (attempted automatically once).
+build is one ``make -C csrc``, run at first use when the library is
+missing or older than its source.
 """
 
 from __future__ import annotations
@@ -32,11 +33,15 @@ def _load():
         if _tried:
             return _lib
         _tried = True
-        if not os.path.exists(_SO) and os.path.exists(os.path.join(_CSRC, "hostkern.cpp")):
+        src = os.path.join(_CSRC, "hostkern.cpp")
+        if os.path.exists(src) and (not os.path.exists(_SO)
+                                    or os.path.getmtime(_SO) < os.path.getmtime(src)):
+            # a missing or stale library (older than its source, e.g. left
+            # by another tree) is rebuilt, never loaded
             try:
                 subprocess.run(["make", "-C", _CSRC], check=True, capture_output=True,
                                timeout=120)
-            except Exception:
+            except (OSError, subprocess.SubprocessError):
                 return None
         if not os.path.exists(_SO):
             return None

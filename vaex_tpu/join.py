@@ -4,7 +4,7 @@ Re-design of the reference's ``vaex/join.py`` (292 LoC).  Same plan shape:
 
 * build an index on the right key (reference: per-thread C++ ``index_hash``
   maps merged, dataframe.py:482-539; here a :class:`SortedIndex` — sorted
-  (key, row) pairs, the TPU/vector-friendly index),
+  (key, row) pairs, the vector-friendly index),
 * fill a ``lookup`` row-index array over the left rows via binary-search
   probes (reference join.py:186-207 map_index),
 * duplicates on the right require ``allow_duplication`` and append duplicated

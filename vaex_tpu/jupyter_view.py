@@ -2,7 +2,7 @@
 packages/vaex-jupyter/vaex/jupyter/view.py + bqplot.py, ~2.7 kLoC of
 bqplot/ipyleaflet widgets).
 
-TPU-first re-design: the VIEW logic — model observation, brush ->
+Re-design: the VIEW logic — model observation, brush ->
 ``df.select``, redraw scheduling — is backend-independent and runs
 headless; rendering is a pluggable backend resolved at construction:
 

@@ -5,7 +5,7 @@ statistics with the engine's aggregation passes and ``transform`` only adds
 *virtual columns*, so a fitted pipeline is pure DataFrame state
 (transformations.py:38-56): serializable with df.state_get, deployable by
 state_set onto any frame with the same schema, and executed inside the fused
-TPU pass like any other expression.
+device pass like any other expression.
 """
 
 from .transformations import (  # noqa: F401

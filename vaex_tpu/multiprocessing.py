@@ -1,6 +1,7 @@
 """Process-pool execution of python UDFs (reference: vaex/multiprocessing.py
 + parallelize.py).  Host-side python UDFs are the one place the GIL still
-bites; chunks are shipped to a fork-server pool.  The UDF must be picklable
+bites; chunks are shipped to a fork-server pool, whose workers never
+inherit the parent's device context.  The UDF must be picklable
 (module-level).  Pool size via VAEX_TPU_NUM_PROCESSES."""
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ def _get_pool():
     if _pool is None:
         import multiprocessing as mp
         nproc = int(os.environ.get("VAEX_TPU_NUM_PROCESSES", 0)) or os.cpu_count() or 4
-        ctx = mp.get_context("fork")
+        ctx = mp.get_context("forkserver")
         _pool = ctx.Pool(min(nproc, 16))
     return _pool
 

@@ -21,22 +21,14 @@ import numpy as np
 
 @jax.tree_util.register_pytree_node_class
 class NA:
-    """data + optional validity. Immutable.
+    """data + optional validity. Immutable."""
 
-    ``presplit`` optionally carries an exact (hi, lo) f32 pair of a float64
-    ``data`` (hi = f32(data), lo = f32(data - hi)): consumers that only
-    need the pair (the channel-limb sum kernels) read it directly and the
-    f64 reconstruction ops feeding ``data`` are dead-code-eliminated by
-    XLA.  The hint is derived state: it does not flatten through pytree
-    boundaries and is dropped by every operator."""
-
-    __slots__ = ("data", "mask", "presplit")
+    __slots__ = ("data", "mask")
     __array_priority__ = 100  # beat numpy operator dispatch
 
-    def __init__(self, data, mask=None, presplit=None):
+    def __init__(self, data, mask=None):
         self.data = data
         self.mask = mask
-        self.presplit = presplit
 
     def tree_flatten(self):
         if self.mask is None:

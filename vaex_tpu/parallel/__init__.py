@@ -4,7 +4,7 @@ The reference's only OSS "distributed" layer is a websocket client/server
 (SURVEY §2.3.5); multi-node sharding is enterprise-only.  Here distribution is
 first-class: a pass runs under ``shard_map`` over a ``jax.sharding.Mesh`` —
 rows sharded across devices, grid accumulators merged with XLA collectives
-(psum/pmin/pmax) over ICI.  ``jax.distributed`` multi-controller extends the
+(psum/pmin/pmax) across devices.  ``jax.distributed`` multi-controller extends the
 same mesh across hosts.
 """
 

@@ -1,9 +1,9 @@
 """Distributed hash join over the device mesh.
 
 The reference's join is a single-node hashmap build + probe
-(join.py:124-291, hash_primitives.hpp index_hash).  The TPU-native
+(join.py:124-291, hash_primitives.hpp index_hash).  The device
 distributed form (SURVEY §2.3.2/5): both sides are *hash-partitioned* across
-the mesh with ``all_to_all`` over ICI so each device owns one key range,
+the mesh with ``all_to_all`` so each device owns one key range,
 builds a local sorted index of its right-side partition, probes its
 left-side partition, and routes the matches back to the left rows' home
 devices — no device ever holds the whole build side.
@@ -20,13 +20,6 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
-
-
-def _shard_map():
-    if hasattr(jax, "shard_map"):
-        return jax.shard_map
-    from jax.experimental.shard_map import shard_map
-    return shard_map
 
 
 def _mix64(k):
@@ -80,25 +73,25 @@ def shuffle_join_lookup(mesh, left_keys, right_keys, slack=4):
     """First-match right row index per left row, hash-partitioned over the
     mesh.  left_keys [Nl], right_keys [Nr] (numeric; NaN never matches).
     Returns (lookup [Nl] int64 global right rows or -1, overflow count)."""
+    from .mesh import shard_rows
     axis = mesh.axis_names[0]
     D = mesh.shape[axis]
     Nl, Nr = left_keys.shape[0], right_keys.shape[0]
-    pad_l = (-Nl) % D
-    pad_r = (-Nr) % D
-    lk = jnp.concatenate([jnp.asarray(left_keys),
-                          jnp.full(pad_l, 0, jnp.asarray(left_keys).dtype)]) if pad_l else jnp.asarray(left_keys)
-    rk = jnp.concatenate([jnp.asarray(right_keys),
-                          jnp.full(pad_r, 0, jnp.asarray(right_keys).dtype)]) if pad_r else jnp.asarray(right_keys)
-    l_valid = jnp.arange(lk.shape[0]) < Nl
-    r_valid = jnp.arange(rk.shape[0]) < Nr
-    if jnp.issubdtype(lk.dtype, jnp.floating):
-        l_valid = l_valid & ~jnp.isnan(lk)
-        r_valid = r_valid & ~jnp.isnan(rk)
-    rrow = jnp.arange(rk.shape[0], dtype=jnp.int64)
-    capL = max(64, (slack * (lk.shape[0] // D)) // D)
-    capR = max(64, (slack * (rk.shape[0] // D)) // D)
+    lk = shard_rows(mesh, left_keys)
+    rk = shard_rows(mesh, right_keys)
+    nl, nr = lk.shape[0] // D, rk.shape[0] // D  # rows per shard
+    capL = max(64, (slack * nl) // D)
+    capR = max(64, (slack * nr) // D)
 
-    def local(lk_l, lval_l, rk_l, rval_l, rrow_l):
+    def local(lk_l, rk_l):
+        # global row numbers of this shard; rows past N are padding
+        d = jax.lax.axis_index(axis).astype(jnp.int64)
+        lrow_l = d * nl + jnp.arange(nl, dtype=jnp.int64)
+        rrow_l = d * nr + jnp.arange(nr, dtype=jnp.int64)
+        lval_l, rval_l = lrow_l < Nl, rrow_l < Nr
+        if jnp.issubdtype(lk_l.dtype, jnp.floating):
+            lval_l = lval_l & ~jnp.isnan(lk_l)
+            rval_l = rval_l & ~jnp.isnan(rk_l)
         # ---- partition the right side and build the local sorted index
         r_owner = jnp.where(rval_l, (_mix64(_key_bits(rk_l)) % jnp.uint64(D)).astype(jnp.int32),
                             jnp.int32(D))
@@ -135,11 +128,10 @@ def shuffle_join_lookup(mesh, left_keys, right_keys, slack=4):
         out = jnp.where(lval_l, out, jnp.int64(-1))
         return out, jax.lax.psum(l_over + r_over, axis), jax.lax.psum(dups, axis)
 
-    shard = _shard_map()
-    fn = shard(local, mesh=mesh,
-               in_specs=(P(axis), P(axis), P(axis), P(axis), P(axis)),
-               out_specs=(P(axis), P(), P()), check_vma=False)
-    lookup, overflow, dups = jax.jit(fn)(lk, l_valid, rk, r_valid, rrow)
+    fn = jax.shard_map(local, mesh=mesh,
+                       in_specs=(P(axis), P(axis)),
+                       out_specs=(P(axis), P(), P()), check_vma=False)
+    lookup, overflow, dups = jax.jit(fn)(lk, rk)
     return lookup[:Nl], int(overflow), int(dups)
 
 
@@ -153,8 +145,8 @@ def _fill_max(dtype):
 def shuffle_join(left_df, right_df, left_on, right_on, mesh, slack=4, max_retries=3):
     """(lookup array, has_duplicates) via the mesh, with skew retries (more
     slack) on overflow — the skew-aware repartition of the plan (SURVEY §7.7)."""
-    lk = jnp.asarray(np.asarray(left_df.evaluate(str(left_on), array_type="numpy")))
-    rk = jnp.asarray(np.asarray(right_df.evaluate(str(right_on), array_type="numpy")))
+    lk = np.asarray(left_df.evaluate(str(left_on), array_type="numpy"))
+    rk = np.asarray(right_df.evaluate(str(right_on), array_type="numpy"))
     for attempt in range(max_retries):
         lookup, overflow, dups = shuffle_join_lookup(mesh, lk, rk,
                                                      slack=slack * (2 ** attempt))

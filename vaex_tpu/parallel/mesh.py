@@ -15,6 +15,21 @@ def data_mesh(n_devices=None, axis_name="d") -> Mesh:
     return Mesh(np.array(devices), (axis_name,))
 
 
+def shard_rows(mesh, values, fill=0):
+    """Place ``values`` with its rows split evenly over the mesh's first
+    axis: each device receives only its own rows (nothing is staged on one
+    device first).  Rows are padded with ``fill`` up to a multiple of the
+    device count."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    axis = mesh.axis_names[0]
+    pad = (-values.shape[0]) % mesh.shape[axis]
+    if pad:
+        xp = jax.numpy if isinstance(values, jax.Array) else np
+        values = xp.concatenate([values, xp.full((pad,) + values.shape[1:], fill,
+                                                 values.dtype)])
+    return jax.device_put(values, NamedSharding(mesh, P(axis)))
+
+
 def distributed_executor(n_devices=None):
     """An ExecutorLocal that runs every pass SPMD over a device mesh."""
     from ..execution import ExecutorLocal

@@ -1,7 +1,7 @@
 """Runtime configuration for vaex_tpu.
 
 Mirrors the reference's env-var config surface (vaex: execution.py:20-27,
-multithreading.py:21-22, dataset_mmap.py:24, cache.py) but TPU-oriented:
+multithreading.py:21-22, dataset_mmap.py:24, cache.py) but device-oriented:
 the central knob is the device *tile* size (rows per jitted step) instead of
 a CPU chunk size.
 
@@ -15,6 +15,8 @@ Env vars (all optional):
   VAEX_TPU_NUM_THREADS_IO   host IO thread pool size (default 8)
   VAEX_TPU_PREFETCH         chunk readahead depth in the executor (default 2;
                             0 disables the IO thread)
+  JAX_COMPILATION_CACHE_DIR persistent XLA compile cache; when unset the
+                            cache lives in ``.jax_cache`` at the checkout root
 """
 
 from __future__ import annotations
@@ -31,12 +33,10 @@ TILE_ROWS = _int_env("VAEX_TPU_TILE_ROWS", 1 << 19)
 TILE_ROWS_MIN = _int_env("VAEX_TPU_TILE_ROWS_MIN", 1024)
 TILE_ROWS_MAX = _int_env("VAEX_TPU_TILE_ROWS_MAX", 1 << 22)
 CACHE = os.environ.get("VAEX_TPU_CACHE", "memory")
-# persistent XLA compilation cache dir ('' / '0' disables)
-COMPILE_CACHE = os.environ.get(
-    "VAEX_TPU_COMPILE_CACHE",
-    os.path.join(os.path.expanduser("~"), ".vaex_tpu", "jax_cache"))
-if COMPILE_CACHE in ("0", "off", "disabled"):
-    COMPILE_CACHE = ""
+# persistent XLA compile cache when JAX_COMPILATION_CACHE_DIR is unset: a
+# fixed directory in the checkout, so every process of this tree hits it
+DEFAULT_COMPILE_CACHE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache")
 CACHE_DISK_PATH = os.environ.get("VAEX_TPU_CACHE_DISK_PATH",
                                  os.path.join(os.path.expanduser("~"), ".vaex_tpu", "cache"))
 CACHE_DISK_SIZE_LIMIT = _int_env("VAEX_TPU_CACHE_DISK_SIZE_LIMIT", 10 << 30)

@@ -99,8 +99,7 @@ class TaskAggregations(Task):
 
     def _fingerprint_extra(self):
         return ([b.fingerprint() for b in self.binners],
-                [op.fingerprint() for op in self.subtasks],
-                getattr(self, "_no_partition", False))
+                [op.fingerprint() for op in self.subtasks])
 
     def reject(self, exception):
         super().reject(exception)
@@ -110,7 +109,6 @@ class TaskAggregations(Task):
         return self
 
     def initial_state(self):
-        import jax.numpy as jnp
         from .ops.binners import grid_size
         G = grid_size(self.binners)
         # collect-style ops (exact percentile) size their state from the
@@ -126,14 +124,11 @@ class TaskAggregations(Task):
                 states.append(op.initial_state(G, n_slots=n_slots))
             else:
                 states.append(op.initial_state(G))
-        # trailing slot: partition-strategy overflow counter (see
-        # ops/pallas_partition.py) — checked at finalize, retried without
-        # the partition kernel when nonzero (pathologically clustered keys)
-        return states + [jnp.zeros((), jnp.int32)]
+        return states
 
-    # strategy thresholds (see ops/gridagg.py + ops/pallas_gridagg.py):
-    # one-hot matmul while the one-hot block fits VMEM, then device sort +
-    # segment reduce, scatter only as the last resort for astronomical grids
+    # strategy thresholds (see ops/gridagg.py): batched small-grid sums and
+    # masked-reduce extremes for small grids, then device sort + segment
+    # reduce, scatter only as the last resort for astronomical grids
     FUSED_ADDITIVE_MAX_G = 2048
     FUSED_EXTREME_MAX_G = 512
     SORT_MAX_G = 1 << 24
@@ -153,13 +148,42 @@ class TaskAggregations(Task):
             return n_total
         return None
 
+    def _sort_columns(self, ctx, additive):
+        """float64 columns for the sort strategies: integer sums ride exact
+        limb columns (OpSum.additive_columns_exact).  Returns (col_specs,
+        cols [N, A], precise column positions)."""
+        import jax.numpy as jnp
+        col_specs, col_list, precise = [], [], []
+        for i in additive:
+            op = self.subtasks[i]
+            exact_cols = (op.additive_columns_exact(ctx)
+                          if hasattr(op, "additive_columns_exact") else None)
+            if exact_cols is not None:
+                col_specs.append((i, len(exact_cols), True))
+                col_list.extend(exact_cols)
+            else:
+                col_specs.append((i, 1, False))
+                if getattr(op, "precise_additive", False):
+                    precise.append(len(col_list))
+                col_list.append(op.additive_column(ctx).astype(jnp.float64))
+        return col_specs, jnp.stack(col_list, axis=1), tuple(precise)
+
+    def _apply_sorted(self, state, new_state, done, col_specs, grids):
+        pos = 0
+        for i, ncols, exact in col_specs:
+            if exact:
+                new_state[i] = self.subtasks[i].apply_additive_exact(
+                    state[i], grids[:, pos:pos + ncols])
+            else:
+                new_state[i] = self.subtasks[i].apply_additive(state[i], grids[:, pos])
+            pos += ncols
+            done[i] = True
+
     def update(self, state, ctx):
         import jax.numpy as jnp
         from .ops import gridagg
         from .ops.binners import grid_size
         G = grid_size(self.binners)
-        overflow = state[-1]
-        state = state[:-1]
         new_state = list(state)
         done = [False] * len(self.subtasks)
 
@@ -172,11 +196,7 @@ class TaskAggregations(Task):
                 _flat[0] = self._flat_indices(ctx)
             return _flat[0]
 
-        from .ops import pallas_gridagg
-        fused_additive_max = self.FUSED_ADDITIVE_MAX_G
-        if pallas_gridagg.is_available():
-            fused_additive_max = pallas_gridagg.TWO_LEVEL_MAX_G  # two-level kernel
-        use_sort_additive = fused_additive_max < G <= self.SORT_MAX_G
+        use_sort_additive = self.FUSED_ADDITIVE_MAX_G < G <= self.SORT_MAX_G
         use_sort_extreme = self.FUSED_EXTREME_MAX_G < G <= self.SORT_MAX_G
 
         additive = [i for i, op in enumerate(self.subtasks) if hasattr(op, "additive_column")]
@@ -200,34 +220,12 @@ class TaskAggregations(Task):
                 nb = binner.count
                 ends = None
                 if additive and use_sort_additive:
-                    col_specs, col_list, precise = [], [], []
-                    for i in additive:
-                        op = self.subtasks[i]
-                        exact_cols = (op.additive_columns_exact(ctx)
-                                      if hasattr(op, "additive_columns_exact") else None)
-                        if exact_cols is not None:
-                            col_specs.append((i, len(exact_cols), True))
-                            col_list.extend(exact_cols)
-                        else:
-                            col_specs.append((i, 1, False))
-                            if getattr(op, "precise_additive", False):
-                                precise.append(len(col_list))
-                            col_list.append(op.additive_column(ctx))
-                    cols = jnp.stack(col_list, axis=1)
+                    col_specs, cols, precise = self._sort_columns(ctx, additive)
                     sums, ends = gridagg.dense_rank_additive(key, cols, nb,
-                                                             precise=tuple(precise))
+                                                             precise=precise)
                     # +3 edge layout: data bins start at 2, edges stay 0
                     grids = jnp.pad(sums, ((2, 1), (0, 0)))
-                    pos = 0
-                    for i, ncols, exact in col_specs:
-                        if exact:
-                            new_state[i] = self.subtasks[i].apply_additive_exact(
-                                state[i], grids[:, pos:pos + ncols])
-                        else:
-                            new_state[i] = self.subtasks[i].apply_additive(
-                                state[i], grids[:, pos])
-                        pos += ncols
-                        done[i] = True
+                    self._apply_sorted(state, new_state, done, col_specs, grids)
                     additive = []
                 if use_sort_extreme:
                     for mode in ("min", "max"):
@@ -244,184 +242,33 @@ class TaskAggregations(Task):
                             new_state[i] = op.apply_extreme(state[i], grid_col)
                             done[i] = True
 
-        # partitioned two-phase kernel (ops/pallas_partition.py): for
-        # mid-cardinality grids the per-row MXU work drops from G to the
-        # sub-grid width S; covers G up to ~1M where the one-hot kernels
-        # stop.  On bucket overflow (clustered keys) the pass result is
-        # invalid — finalize detects the nonzero counter and the executor
-        # reruns the pass with _no_partition set (sort path).
-        PARTITION_MIN_G = 32768
-        # variance moments skip the fixed-point channel kernels (39-bit
-        # block quantization leaves ~1e-9 residue that m2 - mean^2 amplifies
-        # to sqrt(residue) stds for constant cells); they ride the sort
-        # paths' exact per-segment sums instead
-        kernel_additive = [i for i in additive
-                           if not getattr(self.subtasks[i], "precise_additive", False)]
-        # extremes no longer ride the partition kernel: its masked flat
-        # [S, R] reduce measured 89 ns/row at G=1e6 vs 8-12 for the packed
-        # single-key sort (kern_micro5, round 5) — they route to
-        # gridagg.extreme_fast below
-        ext_candidates = []
-        # unlike dense-rank, the partition kernel has no every-bin-observed
-        # invariant: it runs fine on a PER-SHARD basis under shard_map (the
-        # overflow slot merges by psum)
-        if ((kernel_additive or ext_candidates) and pallas_gridagg.is_available()
-                and not getattr(self, "_no_partition", False)
-                and G > PARTITION_MIN_G):
-            from .ops import pallas_partition
-            specs = [getattr(self.subtasks[i], "kernel_channels", lambda c: None)(ctx)
-                     for i in kernel_additive]
-            ext_cols = []
-            ext_idx = []
-            for i in ext_candidates:
-                col = self.subtasks[i].partition_extreme_column(ctx)
-                if col is not None:
-                    ext_cols.append((col, self.subtasks[i].extreme_mode))
-                    ext_idx.append(i)
-            # the partition kernel has no implicit-ones support: materialize
-            # any None (row-validity) channels the channel kernels would
-            # have derived in VMEM
-            specs = [(s[0], [ctx.row_valid.astype(jnp.float32) if c is None else c
-                             for c in s[1]]) if s is not None and s[0] == "static"
-                     else s for s in specs]
-            if ((kernel_additive or ext_idx)
-                    and all(s is not None for s in specs)
-                    and pallas_partition.plan(
-                        G, sum(len(s[1]) for s in specs if s[0] == "static"),
-                        sum(len(s[1]) for s in specs if s[0] == "float")) is not None):
-                static_channels, float_pairs, slots = [], [], []
-                for s in specs:
-                    if s[0] == "static":
-                        slots.append(("static", slice(len(static_channels),
-                                                      len(static_channels) + len(s[1]))))
-                        static_channels.extend(s[1])
-                    else:
-                        slots.append(("float", slice(len(float_pairs),
-                                                     len(float_pairs) + len(s[1]))))
-                        float_pairs.extend(s[1])
-                # padding/filtered rows carry a real-looking bin index with
-                # zero-valued channels — harmless for sums, but they'd eat
-                # partition run capacity (a padded tail = thousands of rows
-                # in ONE cell): route them to the drop bucket explicitly
-                flat_dropped = jnp.where(ctx.row_valid, flat_of(), jnp.int32(G))
-                static_sums, float_sums, ext_grids, ovf = \
-                    pallas_partition.partitioned_additive_channels(
-                        flat_dropped, static_channels, float_pairs, G,
-                        extreme_cols=ext_cols,
-                        validity=ctx.row_valid if ext_cols else None)
-                overflow = overflow + ovf
-                for i, (kind, sl) in zip(kernel_additive, slots):
-                    sums = static_sums[sl] if kind == "static" else float_sums[sl]
-                    new_state[i] = self.subtasks[i].apply_kernel(state[i], sums)
-                    done[i] = True
-                for i, grid_col in zip(ext_idx, ext_grids):
-                    new_state[i] = self.subtasks[i].apply_partition_extreme(
-                        state[i], grid_col)
-                    done[i] = True
-                additive = [i for i in additive if not done[i]]
-                kernel_additive = [i for i in kernel_additive if not done[i]]
-
-        # channel-limb kernel (pallas_gridagg.fused_additive_channels): ONE
-        # bf16 MXU pass with exact integer / 39-bit float accumulation —
-        # preferred whenever the flat one-hot fits
-        if (kernel_additive and pallas_gridagg.is_available()
-                and G <= pallas_gridagg.TWO_LEVEL_MAX_G
-                # moments only detour to the sort path where it exists;
-                # below the fused range they stay on the kernels
-                and (kernel_additive == additive or use_sort_additive)):
-            kadd = kernel_additive if use_sort_additive else additive
-            specs = [getattr(self.subtasks[i], "kernel_channels", lambda c: None)(ctx)
-                     for i in kadd]
-            n_ch = sum(len(s[1]) if s and s[0] == "static" else 5 * len(s[1]) if s else 999
-                       for s in specs)
-            if all(s is not None for s in specs) and n_ch <= 120:
-                from .ops.pallas_gridagg import (
-                    TWO_LEVEL_CHANNEL_MIN_G, fused_additive_channels,
-                    fused_additive_two_level_channels)
-                static_channels, float_pairs, slots = [], [], []
-                for s in specs:
-                    if s[0] == "static":
-                        slots.append(("static", slice(len(static_channels),
-                                                      len(static_channels) + len(s[1]))))
-                        static_channels.extend(s[1])
-                    else:
-                        slots.append(("float", slice(len(float_pairs),
-                                                     len(float_pairs) + len(s[1]))))
-                        float_pairs.extend(s[1])
-                kern = (fused_additive_channels if G <= TWO_LEVEL_CHANNEL_MIN_G
-                        else fused_additive_two_level_channels)
-                fits = (G <= TWO_LEVEL_CHANNEL_MIN_G
-                        or pallas_gridagg.two_level_channels_fits(
-                            G, len(static_channels), len(float_pairs)))
-                if fits:
-                    # validity-folded bin index: padding/filtered rows route
-                    # to the drop bin, which lets implicit (None) count
-                    # channels be derived in VMEM from the index alone
-                    flat_dropped = jnp.where(ctx.row_valid, flat_of(),
-                                             jnp.int32(G))
-                    static_sums, float_sums = kern(
-                        flat_dropped, static_channels, float_pairs, G)
-                    for i, (kind, sl) in zip(kadd, slots):
-                        sums = (static_sums[sl] if kind == "static"
-                                else float_sums[sl])
-                        new_state[i] = self.subtasks[i].apply_kernel(state[i], sums)
-                        done[i] = True
-                    additive = [i for i in additive if not done[i]]
-
-        if additive and G <= fused_additive_max:
-            # integer sums ride exact limb columns here too (the TPU
-            # channel-limb kernel above is exact; this CPU/fallback block
-            # summed int64 in f64 and silently lost bits past 2^53)
-            col_specs, col_list = [], []
+        if additive and G <= self.FUSED_ADDITIVE_MAX_G:
+            # one batched call feeds every additive aggregator: integer
+            # columns sum in int64, float columns in float64
+            int_cols, float_cols, slots = [], [], []
             for i in additive:
-                op = self.subtasks[i]
-                exact_cols = (op.additive_columns_exact(ctx)
-                              if hasattr(op, "additive_columns_exact") else None)
-                if exact_cols is not None:
-                    col_specs.append((i, len(exact_cols), True))
-                    col_list.extend(exact_cols)
+                col = self.subtasks[i].additive_column(ctx)
+                if jnp.issubdtype(col.dtype, jnp.integer):
+                    slots.append((i, 0, len(int_cols)))
+                    int_cols.append(col.astype(jnp.int64))
                 else:
-                    col_specs.append((i, 1, False))
-                    col_list.append(op.additive_column(ctx))
-            cols = jnp.stack(col_list, axis=1)
-            grids = gridagg.fused_additive(flat_of(), cols, G)
-            pos = 0
-            for i, ncols, exact in col_specs:
-                if exact:
-                    new_state[i] = self.subtasks[i].apply_additive_exact(
-                        state[i], grids[:, pos:pos + ncols])
-                else:
-                    new_state[i] = self.subtasks[i].apply_additive(state[i], grids[:, pos])
-                pos += ncols
+                    slots.append((i, 1, len(float_cols)))
+                    float_cols.append(col.astype(jnp.float64))
+            n = ctx.n_rows
+            grids = gridagg.small_g_sums(
+                flat_of(),
+                jnp.stack(int_cols, axis=1) if int_cols else jnp.zeros((n, 0), jnp.int64),
+                jnp.stack(float_cols, axis=1) if float_cols else jnp.zeros((n, 0), jnp.float64),
+                G)
+            for i, kind, pos in slots:
+                new_state[i] = self.subtasks[i].apply_additive(state[i], grids[kind][:, pos])
                 done[i] = True
         elif additive and use_sort_additive:
-            # integer sums ride exact limb columns (OpSum.additive_columns_exact)
-            col_specs, col_list, precise = [], [], []
-            for i in additive:
-                op = self.subtasks[i]
-                exact_cols = (op.additive_columns_exact(ctx)
-                              if hasattr(op, "additive_columns_exact") else None)
-                if exact_cols is not None:
-                    col_specs.append((i, len(exact_cols), True))
-                    col_list.extend(exact_cols)
-                else:
-                    col_specs.append((i, 1, False))
-                    if getattr(op, "precise_additive", False):
-                        precise.append(len(col_list))
-                    col_list.append(op.additive_column(ctx))
-            cols = jnp.stack(col_list, axis=1)
+            col_specs, cols, precise = self._sort_columns(ctx, additive)
             sorted_idx, sorted_cols = gridagg.sort_carry(flat_of(), cols)
             grids = gridagg.sorted_additive(sorted_idx, sorted_cols, G,
-                                            precise=tuple(precise))
-            pos = 0
-            for i, ncols, exact in col_specs:
-                if exact:
-                    new_state[i] = self.subtasks[i].apply_additive_exact(
-                        state[i], grids[:, pos:pos + ncols])
-                else:
-                    new_state[i] = self.subtasks[i].apply_additive(state[i], grids[:, pos])
-                pos += ncols
-                done[i] = True
+                                            precise=precise)
+            self._apply_sorted(state, new_state, done, col_specs, grids)
 
         for mode in ("min", "max"):
             group = [i for i, op in enumerate(self.subtasks)
@@ -441,9 +288,7 @@ class TaskAggregations(Task):
                         done[i] = True
             else:
                 # one packed single-key sort per column (2-key lex for wide
-                # values), compaction-sort boundary extraction — 8-12 ns/row
-                # at G=1e6 vs 80 for the searchsorted lex sort and 89 for
-                # the partition masked reduce (kern_micro5, round 5)
+                # values), compaction-sort boundary extraction
                 for i in group:
                     col = self.subtasks[i].extreme_column(ctx)
                     grid_col = gridagg.extreme_fast(flat_of(), col, G, mode)
@@ -453,27 +298,24 @@ class TaskAggregations(Task):
         for i, op in enumerate(self.subtasks):
             if not done[i]:
                 new_state[i] = op.update(state[i], flat_of(), ctx)
-        return new_state + [overflow], None
+        return new_state, None
 
     def update_spmd(self, state, ctx, axis_name):
         """Per-device: aggregate the local row shard into a zero grid (with
-        the same batched one-hot/sort strategies as the single-device path),
-        then merge into the replicated state with each op's collective
-        (psum/pmin/pmax) — replaces the reference's per-thread parts + tree
-        reduce."""
+        the same batched small-grid/sort strategies as the single-device
+        path), then merge into the replicated state with each op's
+        collective (psum/pmin/pmax) — replaces the reference's per-thread
+        parts + tree reduce."""
         import jax.numpy as jnp
         from .ops.binners import grid_size
         G = grid_size(self.binners)
         zeros = [tuple(jnp.asarray(z) for z in op.initial_state(G)) for op in self.subtasks]
         # each device sees only its row shard: the dense-rank strategy's
-        # every-bin-observed invariant does not hold per shard (the
-        # partition kernel has no such invariant and DOES run per shard)
+        # every-bin-observed invariant does not hold per shard
         ctx.spmd_shard = True
-        deltas, _ = self.update(zeros + [jnp.zeros((), jnp.int32)], ctx)
-        new_state = [tuple(op.merge(tuple(s), tuple(d), axis_name))
-                     for op, s, d in zip(self.subtasks, state[:-1], deltas[:-1])]
-        import jax
-        return new_state + [state[-1] + jax.lax.psum(deltas[-1], axis_name)], None
+        deltas, _ = self.update(zeros, ctx)
+        return [tuple(op.merge(tuple(s), tuple(d), axis_name))
+                for op, s, d in zip(self.subtasks, state, deltas)], None
 
     def _flat_indices(self, ctx):
         from .ops.binners import fuse_bins
@@ -492,12 +334,6 @@ class TaskAggregations(Task):
 
     def finalize(self, state, outputs):
         from .ops.binners import grid_shape
-        overflow = int(np.asarray(state[-1]))
-        if overflow:
-            raise PartitionOverflow(
-                f"partition kernel overflowed {overflow} rows (clustered keys); "
-                "rerun the pass without the partition strategy")
-        state = state[:-1]
         shape = grid_shape(self.binners)
         results = []
         for op, s in zip(self.subtasks, state):
@@ -737,12 +573,6 @@ class TaskSetCreateDevice(Task):
 
 class SetCapOverflow(Exception):
     pass
-
-
-class PartitionOverflow(Exception):
-    """The partition kernel's per-(block, bucket) capacity overflowed
-    (pathologically clustered keys, e.g. pre-sorted input): the pass result
-    is invalid and must be recomputed without the partition strategy."""
 
 
 class TaskMapReduce(Task):

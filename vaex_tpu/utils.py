@@ -133,7 +133,7 @@ TRACE = _os.environ.get("VAEX_TPU_TRACE", "") not in ("", "0")
 @_contextlib.contextmanager
 def trace(name):
     """Env-gated stage tracing (VAEX_TPU_TRACE=1): prints wall time of the
-    wrapped block to stderr.  The TPU-native stand-in for the reference's
+    wrapped block to stderr.  The stand-in for the reference's
     progressbar tree (vaex/misc/progressbar.py) when profiling headless."""
     if not TRACE:
         yield
@@ -144,3 +144,23 @@ def trace(name):
     finally:
         print(f"[trace] {name}: {(_time.perf_counter() - t0)*1e3:.1f} ms",
               file=_sys.stderr, flush=True)
+
+
+# the CPU backend reports no allocator stats: plan against a fixed budget
+CPU_MEMORY_BUDGET = 16_000_000_000
+
+
+def device_memory_budget():
+    """Bytes of device memory a pass may plan around: the first device's
+    allocator limit (``memory_stats()["bytes_limit"]``).  The CPU backend
+    has no stats and gets :data:`CPU_MEMORY_BUDGET`; any other device
+    without stats is an error."""
+    import jax
+    dev = jax.devices()[0]
+    stats = dev.memory_stats()
+    if stats and "bytes_limit" in stats:
+        return int(stats["bytes_limit"])
+    if dev.platform == "cpu":
+        return CPU_MEMORY_BUDGET
+    raise RuntimeError(f"{dev.platform} device {dev.device_kind!r} reports no "
+                       "memory limit to size device programs against")
